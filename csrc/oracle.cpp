@@ -1,4 +1,4 @@
-// Native CPU oracle for qtesla_tpu (C ABI, loaded via ctypes).
+// Native CPU oracle for qtesla_ntt (C ABI, loaded via ctypes).
 //
 // Plays the role the reference's CPU-side naive transforms play
 // (NTT_naive/INTT_naive NTT.cu:515-554, schoolbook base multiply

@@ -1,11 +1,10 @@
-"""bench.py contract tests (CPU): algorithm pick and JSON emission."""
+"""bench.py contract tests (CPU): the served pick and JSON emission."""
 
 import importlib.util
 import json
-import sys
 from pathlib import Path
 
-import pytest
+import numpy as np
 
 _spec = importlib.util.spec_from_file_location(
     "bench", Path(__file__).resolve().parent.parent / "bench.py")
@@ -13,54 +12,65 @@ bench = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(bench)
 
 
-def test_pick_algo_cpu_falls_back_to_merged():
-    """On a non-TPU backend the Pallas kernels can't compile; the driver
-    benchmark must select the jnp pipeline."""
-    assert bench.pick_algo() == "merged"
+def test_pick_algo_cpu_falls_back_to_merged(monkeypatch, capsys):
+    """bench.py times models.served_algo's pick, which off the GPU is the
+    jnp `merged` pipeline; it only gets that far on a GPU."""
+    _fake_gpu(monkeypatch)
+    assert bench.main() == 0
+    doc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert doc["algo"] == "merged"
 
 
-def test_main_emits_one_json_line_last(monkeypatch, capsys):
-    """The driver contract: exactly one JSON line on stdout, emitted as the
-    LAST act (after every diagnostic — round-3 regression: the JSON printed
-    first and the diagnostics scrolled it out of the driver's tail
-    capture), even when only one configuration succeeds."""
-    calls = []
-    order = []
+class _FakeDevice:
+    platform = "gpu"
+    device_kind = "fake"
 
+
+def _fake_gpu(monkeypatch, results=None):
     class FakeResult:
         throughput_best = 1234.5
-        min_s = 1.0
 
         def line(self):
             return "fake"
 
     def fake_benchmark(name, algo, batch, iters, inner=1):
-        calls.append((name, algo, batch))
-        if len(calls) > 1:
-            raise RuntimeError("boom")        # diagnostics may fail freely
+        (results if results is not None else []).append((name, algo, batch))
         return FakeResult()
 
-    monkeypatch.setattr("qtesla_tpu.utils.timing.benchmark_polymul",
+    monkeypatch.setattr("qtesla_ntt.utils.device.require_gpu",
+                        lambda what: _FakeDevice())
+    monkeypatch.setattr("qtesla_ntt.utils.timing.benchmark_polymul",
                         fake_benchmark)
-    # the cpu-mesh subprocess is exercised by the slow-tier test below
-    monkeypatch.setattr(bench, "_cpu_mesh_validation",
-                        lambda: order.append("mesh"))
-    monkeypatch.setattr(bench, "_diagnostics",
-                        lambda *a: order.append("diag"))
+    monkeypatch.setattr(bench, "BATCH", 4)
+
+
+def test_main_emits_one_json_line_last(monkeypatch, capsys):
+    """The driver contract: exactly one JSON line on stdout, the last one,
+    naming the device, after the sampled oracle check passed."""
+    calls = []
+    _fake_gpu(monkeypatch, calls)
     assert bench.main() == 0
     out = capsys.readouterr().out.strip().splitlines()
     assert len(out) == 1
     doc = json.loads(out[0])
-    assert doc["unit"] == "polymuls/s/chip" and doc["value"] == 1234.5
-    # diagnostics ran BEFORE the JSON was printed
-    assert order == ["diag", "mesh"]
+    assert doc["unit"] == "polymuls/s" and doc["value"] == 1234.5
+    assert doc["device"]["platform"] == "gpu" and doc["bit_exact"] is True
+    assert calls == [("qtesla-iii-speed", "merged", 4)]
 
 
-@pytest.mark.slow
-def test_cpu_mesh_validation_runs(capsys):
-    """The real cpu-mesh scaling subprocess: rows must carry the
-    virtual-device caveat fields (round-3 VERDICT item 3)."""
-    bench._cpu_mesh_validation()
-    err = capsys.readouterr().err
-    assert "cpu-mesh scaling:" in err
-    assert '"virtual_devices": true' in err
+def test_main_refuses_wrong_output(monkeypatch, capsys):
+    """A sampled row that differs from the oracle: no JSON, exit 1."""
+    _fake_gpu(monkeypatch)
+    import qtesla_ntt.models as models
+    good = models.polymul_fn
+
+    def corrupt(name, algo=None):
+        def fn(x, y):
+            z = np.array(good(name, algo)(x, y))
+            z[-1, 0] ^= 1
+            return z
+        return fn
+
+    monkeypatch.setattr(models, "polymul_fn", corrupt)
+    assert bench.main() == 1
+    assert capsys.readouterr().out == ""

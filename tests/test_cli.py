@@ -4,7 +4,7 @@ semantics, main.cu:66-226, exercised end to end through argparse)."""
 import numpy as np
 import pytest
 
-from qtesla_tpu import cli
+from qtesla_ntt import cli
 
 
 def test_info(capsys):
@@ -33,7 +33,7 @@ def test_correctness_all_skips_pallas_on_cpu(capsys):
                      "--algo", "all"]) == 0
     out = capsys.readouterr().out
     assert "merged" in out and "nussbaumer" in out
-    assert "mxu" not in out                   # Pallas algos skipped on CPU
+    assert "fused" not in out           # 'all' is the jnp family + Nussbaumer
 
 
 def test_speed_json(capsys):
@@ -92,7 +92,7 @@ def test_scaling_dp(capsys):
     assert rows[0]["mode"] == "dp" and rows[0]["scaling_eff"] == 1.0
     # virtual CPU devices must be labelled as such in the artifact
     assert rows[0]["virtual_devices"] is True
-    assert "caveat" in rows[0] and "NOT ICI scaling" in rows[0]["caveat"]
+    assert "caveat" in rows[0] and "NOT device scaling" in rows[0]["caveat"]
 
 
 def test_scaling_fixed_global_batch(capsys):

@@ -1,9 +1,8 @@
 """Multi-host layer test: two real OS processes, each with 2 virtual CPU
 devices, joined through the JAX coordination service — exercises
 jax.distributed init, the hosts-major global mesh, cross-process batch
-assembly, and both the DP and four-step-SP pipelines bit-exactly
-(BASELINE.md:28's "1 chip -> 1 host -> N hosts" plumbing, testable without
-a pod)."""
+assembly, and both the DP and four-step-SP pipelines bit-exactly (the
+"1 device -> 1 host -> N hosts" plumbing, testable without a cluster)."""
 
 import os
 import socket
@@ -85,7 +84,7 @@ def test_local_shard_rejects_non_batch_sharding():
     import jax.numpy as jnp
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from qtesla_tpu.parallel import local_shard, make_mesh
+    from qtesla_ntt.parallel import local_shard, make_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")

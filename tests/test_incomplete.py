@@ -6,7 +6,7 @@ into n/2 quadratics and the pointwise stage becomes degree-1 products."""
 import numpy as np
 import pytest
 
-from qtesla_tpu.ops.incomplete import (basemul_incomplete,
+from qtesla_ntt.ops.incomplete import (basemul_incomplete,
                                        incomplete_params, intt_incomplete,
                                        ntt_incomplete,
                                        polymul_incomplete_fn)
@@ -28,11 +28,11 @@ def test_incomplete_polymul_vs_schoolbook(rng, n, q):
     x[0, :] = q - 1                       # worst-case magnitudes
     y[0, :] = q - 1
     z = np.asarray(polymul_incomplete_fn(n, q)(x, y))
-    from qtesla_tpu.utils import native
+    from qtesla_ntt.utils import native
     if native.native_available():
         want = native.negacyclic_schoolbook(x, y, q)
     else:
-        from qtesla_tpu.oracle import negacyclic_schoolbook
+        from qtesla_ntt.oracle import negacyclic_schoolbook
         want = np.stack([negacyclic_schoolbook(x[b], y[b], _PS(n, q))
                          for b in range(3)]).astype(np.uint32)
     np.testing.assert_array_equal(z, want)
@@ -65,7 +65,7 @@ def test_incomplete_rejects_wrong_modulus():
         incomplete_params(256, 3331)          # 3331 is not 1 mod 256
     # the MAIN registry rightly rejects the Kyber modulus (no 2n-th root):
     # the incomplete path is the only road for it
-    from qtesla_tpu.params import ParamSet
+    from qtesla_ntt.params import ParamSet
     with pytest.raises(ValueError, match="2n"):
         ParamSet(name="kyber-nope", n=256, q=3329)
 
@@ -99,8 +99,8 @@ def test_incomplete_registration_space_fuzz(rng):
     main registry's prime fuzz): for several n, find primes with
     q ≡ 1 (mod n) but q ≢ 1 (mod 2n) — the exact class the complete
     registry rejects — and check bit-exactness vs the schoolbook oracle."""
-    from qtesla_tpu.utils import native
-    from qtesla_tpu.oracle import negacyclic_schoolbook
+    from qtesla_ntt.utils import native
+    from qtesla_ntt.oracle import negacyclic_schoolbook
 
     checked = 0
     for n in (64, 128, 256):

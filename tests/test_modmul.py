@@ -1,5 +1,5 @@
 """Bit-exactness tests for the lane-parallel uint32 modular arithmetic
-(qtesla_tpu/ops/modmul.py) against Python big-int ground truth, over the full
+(qtesla_ntt/ops/modmul.py) against Python big-int ground truth, over the full
 operand range — SURVEY.md §7 step 3 ("decides everything downstream")."""
 
 import numpy as np
@@ -7,8 +7,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from qtesla_tpu.ops import modmul as mm
-from qtesla_tpu.params import get_params
+from qtesla_ntt.ops import modmul as mm
+from qtesla_ntt.params import get_params
 
 QS = [4205569, 8404993, 343576577, 856145921, 65537]
 

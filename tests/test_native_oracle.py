@@ -4,10 +4,10 @@ oracle, and as ground truth for the device pipelines."""
 import numpy as np
 import pytest
 
-from qtesla_tpu.oracle import (negacyclic_schoolbook,
+from qtesla_ntt.oracle import (negacyclic_schoolbook,
                                negacyclic_schoolbook_ring, ntt_naive)
-from qtesla_tpu.params import get_params
-from qtesla_tpu.utils import native
+from qtesla_ntt.params import get_params
+from qtesla_ntt.utils import native
 
 pytestmark = pytest.mark.skipif(not native.native_available(),
                                 reason="no C++ toolchain")
@@ -53,9 +53,9 @@ def test_cpp_polymul_ntt_self_consistent(rng, name):
 
 
 def test_device_pipeline_vs_cpp_oracle(rng):
-    """The flagship device pipeline against the native oracle at full range
-    (qtesla-iii-speed) — the primary bit-exactness gate from BASELINE.md."""
-    from qtesla_tpu.models import polymul_negacyclic
+    """The merged pipeline against the native oracle at full range
+    (qtesla-iii-speed) — the primary bit-exactness gate."""
+    from qtesla_ntt.models import polymul_negacyclic
     ps = get_params("qtesla-iii-speed")
     x = rng.integers(0, ps.q, (4, ps.n), dtype=np.uint32)
     y = rng.integers(0, ps.q, (4, ps.n), dtype=np.uint32)

@@ -9,10 +9,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from qtesla_tpu.oracle import (intt_inverse_psi_merged, ntt_naive,
+from qtesla_ntt.oracle import (intt_inverse_psi_merged, ntt_naive,
                                ntt_forward_psi_merged)
-from qtesla_tpu.ops import ntt as N
-from qtesla_tpu.ops.tables import get_tables
+from qtesla_ntt.ops import ntt as N
+from qtesla_ntt.ops.tables import get_tables
 
 
 def _jit(fn, tbl, **kw):
@@ -134,7 +134,7 @@ def test_pointwise_mul(rng, tbl):
 
 def test_batch_shapes_arbitrary(rng, tbl):
     """Transforms operate on the last axis of any-rank batches (vmap-free
-    broadcasting, the TPU analog of blockIdx.x batching)."""
+    broadcasting, the analog of the reference's blockIdx.x batching)."""
     x = rng.integers(0, tbl.q, (2, 3, tbl.n), dtype=np.uint32)
     got = np.asarray(_jit(N.ntt_fwd_merged, tbl)(x))
     flat = np.asarray(_jit(N.ntt_fwd_merged, tbl)(x.reshape(6, tbl.n)))
@@ -145,8 +145,8 @@ def test_fused_bitrev_weighting_ops(rng):
     """Fused bitrev x weighting (reference NTT.cu:494-509) == the explicit
     two-pass compositions, for both orders."""
     import jax
-    from qtesla_tpu.ops import ntt as N
-    from qtesla_tpu.ops.tables import get_tables
+    from qtesla_ntt.ops import ntt as N
+    from qtesla_ntt.ops.tables import get_tables
     tbl = get_tables("qtesla-iii-speed")
     v = jnp.asarray(rng.integers(0, tbl.q, (3, tbl.n), dtype=np.uint32))
     a = np.asarray(jax.jit(

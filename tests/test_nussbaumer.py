@@ -7,13 +7,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from qtesla_tpu.ops import ringz32 as R
-from qtesla_tpu.ops.nussbaumer import (nussbaumer_negacyclic_ring,
+from qtesla_ntt.ops import ringz32 as R
+from qtesla_ntt.ops.nussbaumer import (nussbaumer_negacyclic_ring,
                                        polymul_nussbaumer_fn)
-from qtesla_tpu.models import polymul_negacyclic
-from qtesla_tpu.oracle import (negacyclic_schoolbook,
+from qtesla_ntt.models import polymul_negacyclic
+from qtesla_ntt.oracle import (negacyclic_schoolbook,
                                negacyclic_schoolbook_ring)
-from qtesla_tpu.params import get_params
+from qtesla_ntt.params import get_params
 
 M = (1 << 32) - 1
 
@@ -92,10 +92,10 @@ def test_nussbaumer_negative_wrap():
 
 
 def test_nussbaumer_ring_out_of_domain_raises():
-    """Round-1 VERDICT: the ring path must refuse declared operand bounds
+    """The ring path must refuse declared operand bounds
     outside its provable exactness domain instead of returning silently
     wrong results."""
-    from qtesla_tpu.ops.nussbaumer import ring_exact_coeff_bound
+    from qtesla_ntt.ops.nussbaumer import ring_exact_coeff_bound
     limit = ring_exact_coeff_bound(1024)
     with pytest.raises(ValueError, match="exact only"):
         polymul_nussbaumer_fn("qtesla-iii-speed")          # full range
@@ -125,10 +125,10 @@ def test_nussbaumer_modq_full_range(rng, name):
 @pytest.mark.slow
 def test_nussbaumer_batch_chunking(rng):
     """Large batches run as a sequential lax.map over fixed chunks (the
-    single-shot pipeline's intermediates crash the TPU worker at
-    B >= 2048, measured round 3) — the chunked path (bulk map + remainder)
-    must be bit-identical to the single-shot path."""
-    from qtesla_tpu.ops.nussbaumer import (_chunked_pairs,
+    single-shot pipeline's intermediates grow with the batch) — the chunked
+    path (bulk map + remainder) must be bit-identical to the single-shot
+    path."""
+    from qtesla_ntt.ops.nussbaumer import (_chunked_pairs,
                                            nussbaumer_negacyclic_modq)
     ps = get_params("smallprime")
     B = 7                          # chunk=2: 3 mapped chunks + remainder 1
@@ -148,7 +148,7 @@ def test_karatsuba_base_products_match_schoolbook(rng):
     """The negacyclic-Karatsuba base products (9/16 the multiplies) must be
     bit-identical to the reference-shaped schoolbook (smallprime keeps it
     in the fast tier; the ring variant is the slow-tier twin below)."""
-    from qtesla_tpu.ops.nussbaumer import nussbaumer_negacyclic_modq
+    from qtesla_ntt.ops.nussbaumer import nussbaumer_negacyclic_modq
     ps = get_params("smallprime")
     x = rng.integers(0, ps.q, (3, ps.n), dtype=np.uint32)
     y = rng.integers(0, ps.q, (3, ps.n), dtype=np.uint32)
@@ -160,7 +160,7 @@ def test_karatsuba_base_products_match_schoolbook(rng):
 @pytest.mark.slow
 def test_karatsuba_matches_schoolbook_ring(rng):
     """Same A/B over the Z_{2^32-1} end-around-carry arithmetic."""
-    from qtesla_tpu.ops.nussbaumer import nussbaumer_negacyclic_ring
+    from qtesla_ntt.ops.nussbaumer import nussbaumer_negacyclic_ring
     xr = rng.integers(0, 500, (2, 64), dtype=np.uint32)
     yr = rng.integers(0, 500, (2, 64), dtype=np.uint32)
     c = np.asarray(nussbaumer_negacyclic_ring(xr, yr, base="schoolbook"))
@@ -170,7 +170,7 @@ def test_karatsuba_matches_schoolbook_ring(rng):
 
 @pytest.mark.exhaustive
 def test_karatsuba_matches_schoolbook_qtesla_iii(rng):
-    from qtesla_tpu.ops.nussbaumer import nussbaumer_negacyclic_modq
+    from qtesla_ntt.ops.nussbaumer import nussbaumer_negacyclic_modq
     ps = get_params("qtesla-iii-speed")
     x = rng.integers(0, ps.q, (2, ps.n), dtype=np.uint32)
     y = rng.integers(0, ps.q, (2, ps.n), dtype=np.uint32)

@@ -4,7 +4,7 @@ main.cu:18-65 root registry, constants.h tables)."""
 import numpy as np
 import pytest
 
-from qtesla_tpu.params import available_param_sets, get_params
+from qtesla_ntt.params import available_param_sets, get_params
 
 ALL_SETS = ["qtesla-i", "qtesla-iii-speed", "qtesla-p-i", "qtesla-p-iii",
             "smallprime"]
@@ -82,7 +82,7 @@ def test_scalar_constants():
 
 
 def test_rejects_bad_params():
-    from qtesla_tpu.params import ParamSet
+    from qtesla_ntt.params import ParamSet
     with pytest.raises(ValueError):
         ParamSet(name="bad", n=48, q=65537)       # not a power of two
     with pytest.raises(ValueError):
@@ -94,9 +94,9 @@ def test_register_param_set_end_to_end(rng):
     pipelines and oracles (the reference needs a recompile for this,
     main.cuh:23-29)."""
     import numpy as np
-    from qtesla_tpu.params import register_param_set, get_params
-    from qtesla_tpu.models import polymul_negacyclic
-    from qtesla_tpu.oracle import negacyclic_schoolbook
+    from qtesla_ntt.params import register_param_set, get_params
+    from qtesla_ntt.models import polymul_negacyclic
+    from qtesla_ntt.oracle import negacyclic_schoolbook
     # 7681 = 2^9*3*5 + 1: classic Kyber-toy prime, q = 1 mod 2n for n = 64
     ps = register_param_set("toy-7681", 64, 7681)
     assert get_params("toy-7681") == ps
@@ -114,13 +114,13 @@ def test_register_param_set_end_to_end(rng):
 
 
 def test_runtime_registered_set_mxu_and_nussbaumer(rng):
-    """Extends test_register_param_set_end_to_end: the MXU digit-matmul
-    kernel (interpret) and the exact mod-q Nussbaumer also work on a
+    """Extends test_register_param_set_end_to_end: the fused kernel
+    (interpret) and the exact mod-q Nussbaumer also work on a
     RUNTIME-registered set, with adversarial all-(q-1) operands."""
-    from qtesla_tpu.models import polymul_negacyclic
-    from qtesla_tpu.oracle import negacyclic_schoolbook
-    from qtesla_tpu.ops.ntt_mxu import polymul_mxu_fn
-    from qtesla_tpu.params import register_param_set
+    from qtesla_ntt.models import polymul_negacyclic
+    from qtesla_ntt.oracle import negacyclic_schoolbook
+    from qtesla_ntt.ops.ntt_pallas import polymul_fused_fn
+    from qtesla_ntt.params import register_param_set
 
     ps = register_param_set("toy-7681", 64, 7681)   # idempotent re-register
     x = rng.integers(0, ps.q, (3, ps.n), dtype=np.uint32)
@@ -131,7 +131,7 @@ def test_runtime_registered_set_mxu_and_nussbaumer(rng):
                      for b in range(3)]).astype(np.uint32)
     z = np.asarray(polymul_negacyclic(x, y, ps, algo="nussbaumer"))
     np.testing.assert_array_equal(z.astype(np.uint32), want)
-    z = np.asarray(polymul_mxu_fn("toy-7681", interpret=True)(x, y))
+    z = np.asarray(polymul_fused_fn("toy-7681", interpret=True)(x, y))
     np.testing.assert_array_equal(z, want)
 
 
@@ -141,11 +141,11 @@ def test_dilithium_prime_and_n4096_beyond_reference(rng):
     (main.cu:18-65): the Dilithium prime q=8380417=2^23-2^13+1 at n=256,
     and a 4x-larger-than-reference n=4096 transform on the same prime
     (8192 | q-1), each bit-exact vs the schoolbook oracle through both the
-    jnp pipeline and the MXU kernel (interpret)."""
-    from qtesla_tpu.models import polymul_negacyclic
-    from qtesla_tpu.oracle import negacyclic_schoolbook
-    from qtesla_tpu.ops.ntt_mxu import polymul_mxu_fn
-    from qtesla_tpu.params import register_param_set
+    jnp pipeline and the fused kernel (interpret)."""
+    from qtesla_ntt.models import polymul_negacyclic
+    from qtesla_ntt.oracle import negacyclic_schoolbook
+    from qtesla_ntt.ops.ntt_pallas import polymul_fused_fn
+    from qtesla_ntt.params import register_param_set
 
     for name, n in [("dilithium-256", 256), ("dilithium-4096", 4096)]:
         ps = register_param_set(name, n=n, q=8380417)
@@ -158,26 +158,21 @@ def test_dilithium_prime_and_n4096_beyond_reference(rng):
                          for b in range(B)]).astype(np.uint32)
         z = np.asarray(polymul_negacyclic(x, y, ps, algo="merged"))
         np.testing.assert_array_equal(z, want, err_msg=f"{name} merged")
-        z = np.asarray(polymul_mxu_fn(name, interpret=True)(x, y))
-        np.testing.assert_array_equal(z, want, err_msg=f"{name} mxu")
+        z = np.asarray(polymul_fused_fn(name, interpret=True)(x, y))
+        np.testing.assert_array_equal(z, want, err_msg=f"{name} fused")
 
 
 def test_register_near_2pow30_prime(rng):
-    """Regression (code-review round 3): for q in [~1.07e9, 2^30) the
-    recombination planner's always-enumerated all-singleton composition
-    cannot fit uint32 (5*(q-1) >= 2^32) and used to crash table
-    construction with an AssertionError while merely COSTING it, even
-    though 2-group plans fit.  q = 2^30 - 2^18 + 1 is prime with
-    q = 1 mod 2n for n <= 2^17; the planner must prune infeasible
-    candidates and the registered set must run bit-exact."""
-    from qtesla_tpu.models import polymul_negacyclic
-    from qtesla_tpu.oracle import negacyclic_schoolbook
-    from qtesla_tpu.ops.ntt_mxu import get_mxu_tables, polymul_mxu_fn
-    from qtesla_tpu.params import register_param_set
+    """q = 2^30 - 2^18 + 1 (prime, q = 1 mod 2n for n <= 2^17) sits just
+    under the lazy arithmetic's 4q < 2^32 bound: the jnp pipeline and the
+    fused kernel (interpret), whose forward values reach 4q, must stay
+    bit-exact with adversarial all-(q-1) operands."""
+    from qtesla_ntt.models import polymul_negacyclic
+    from qtesla_ntt.oracle import negacyclic_schoolbook
+    from qtesla_ntt.ops.ntt_pallas import polymul_fused_fn
+    from qtesla_ntt.params import register_param_set
 
     ps = register_param_set("toy-30bit", n=64, q=1073479681)
-    mt = get_mxu_tables("toy-30bit")          # used to raise here
-    assert len(mt.groups_f) >= 2 and len(mt.groups_i) >= 2
     x = rng.integers(0, ps.q, (2, ps.n), dtype=np.uint32)
     y = rng.integers(0, ps.q, (2, ps.n), dtype=np.uint32)
     x[0, :] = ps.q - 1
@@ -186,31 +181,29 @@ def test_register_near_2pow30_prime(rng):
                      for b in range(2)]).astype(np.uint32)
     z = np.asarray(polymul_negacyclic(x, y, ps, algo="merged"))
     np.testing.assert_array_equal(z, want, err_msg="merged")
-    z = np.asarray(polymul_mxu_fn("toy-30bit", interpret=True)(x, y))
-    np.testing.assert_array_equal(z, want, err_msg="mxu")
+    z = np.asarray(polymul_fused_fn("toy-30bit", interpret=True)(x, y))
+    np.testing.assert_array_equal(z, want, err_msg="fused")
 
 
 @pytest.mark.slow
 def test_runtime_registered_n8192(rng):
-    """Round-5 generality flex (VERDICT r4 item 8): n=8192 on the
-    qTESLA-III-speed prime (8404993 = 1 mod 16384) through the unmodified
-    registry and merged pipeline — 8x the reference's N<=1024 root ladder
-    (main.cu:18-65).  The flagship-kernel device number lives in
-    docs/BENCHMARKS.md (scripts/probe_r5e.py)."""
-    from qtesla_tpu.models import polymul_negacyclic
-    from qtesla_tpu.params import register_param_set
+    """n=8192 on the qTESLA-III-speed prime (8404993 = 1 mod 16384)
+    through the unmodified registry and merged pipeline — 8x the
+    reference's N<=1024 root ladder (main.cu:18-65)."""
+    from qtesla_ntt.models import polymul_negacyclic
+    from qtesla_ntt.params import register_param_set
 
     ps = register_param_set("qtesla3s-8192-test", n=8192, q=8404993)
     assert pow(ps.psi, ps.n, ps.q) == ps.q - 1      # psi is a 2n-th root
     x = rng.integers(0, ps.q, (1, ps.n), dtype=np.uint32)
     y = rng.integers(0, ps.q, (1, ps.n), dtype=np.uint32)
     z = np.asarray(polymul_negacyclic(x, y, ps, algo="merged"))
-    from qtesla_tpu.utils import native
+    from qtesla_ntt.utils import native
     if native.native_available():
         want = native.negacyclic_schoolbook(x, y, ps.q)
         np.testing.assert_array_equal(z, want)
     else:                       # round-trip + closed-form fallback
-        from qtesla_tpu.oracle import all_ones_square_closed_form
+        from qtesla_ntt.oracle import all_ones_square_closed_form
         ones = np.ones((1, ps.n), dtype=np.uint32)
         zz = np.asarray(polymul_negacyclic(ones, ones, ps, algo="merged"))
         np.testing.assert_array_equal(

@@ -5,10 +5,10 @@ parameter set, vs the schoolbook big-int oracle and the all-ones closed form
 import numpy as np
 import pytest
 
-from qtesla_tpu.models import ALGORITHMS, polymul_negacyclic
-from qtesla_tpu.oracle import (all_ones_square_closed_form,
+from qtesla_ntt.models import ALGORITHMS, polymul_negacyclic
+from qtesla_ntt.oracle import (all_ones_square_closed_form,
                                negacyclic_schoolbook)
-from qtesla_tpu.params import get_params
+from qtesla_ntt.params import get_params
 
 PIPELINES = sorted(ALGORITHMS)
 
@@ -89,8 +89,8 @@ def test_differential_fuzz_vs_native_oracle(rng):
     """Differential fuzz: random (param set, algorithm, batch, operand
     distribution) configurations against the native C++ schoolbook oracle
     (falls back to the big-int numpy oracle when csrc isn't built)."""
-    from qtesla_tpu.utils import native
-    from qtesla_tpu.oracle import negacyclic_schoolbook
+    from qtesla_ntt.utils import native
+    from qtesla_ntt.oracle import negacyclic_schoolbook
 
     cases = []
     sets = ["smallprime", "qtesla-i", "qtesla-iii-speed", "qtesla-p-i"]
@@ -122,3 +122,61 @@ def test_differential_fuzz_vs_native_oracle(rng):
                              for b in range(B)]).astype(np.uint32)
         np.testing.assert_array_equal(
             z, want, err_msg=f"{name}/{algo}/B={B}/mode={mode}")
+
+
+REAL_SETS = ["qtesla-i", "qtesla-iii-speed", "qtesla-p-i", "qtesla-p-iii"]
+
+
+@pytest.mark.parametrize("name", REAL_SETS)
+@pytest.mark.parametrize("shape", ["streamed", "fixed"])
+def test_served_path_vs_oracle(rng, name, shape):
+    """The served pipeline (algo=None, models.served_algo) at each real
+    qTESLA modulus, every row against the C++ schoolbook oracle."""
+    from qtesla_ntt.models import polymul_fixed_fn, polymul_fn
+    from qtesla_ntt.oracle import mismatched_rows
+    ps = get_params(name)
+    x = rng.integers(0, ps.q, (3, ps.n), dtype=np.uint32)
+    x[0] = ps.q - 1                          # extremal row
+    y = rng.integers(0, ps.q, (3, ps.n), dtype=np.uint32)
+    if shape == "streamed":
+        z = polymul_fn(name)(x, y)
+    else:
+        prep, mul = polymul_fixed_fn(name)
+        y = y[0]
+        z = mul(x, prep(y[None])[0])
+    assert mismatched_rows(x, y, np.asarray(z), ps, range(3)) == []
+
+
+@pytest.mark.parametrize("algo", [a for a in PIPELINES if a != "merged"])
+def test_pipelines_vs_oracle_qtesla_iii_speed(rng, algo):
+    """The reference's explicit pairings and the other jnp pipelines at
+    the reference's own modulus, against the C++ schoolbook oracle."""
+    from qtesla_ntt.oracle import mismatched_rows
+    ps = get_params("qtesla-iii-speed")
+    x = rng.integers(0, ps.q, (2, ps.n), dtype=np.uint32)
+    y = rng.integers(0, ps.q, (2, ps.n), dtype=np.uint32)
+    z = np.asarray(polymul_negacyclic(x, y, ps, algo=algo))
+    assert mismatched_rows(x, y, z, ps, range(2)) == []
+
+
+@pytest.mark.parametrize("backend,n,want", [
+    ("cpu", 1024, "merged"),
+    ("gpu", 512, "fused"),
+    ("gpu", 1024, "fused"),
+    ("gpu", 2048, "fused"),
+    ("gpu", 64, "merged"),        # not measured: stays on the reference
+    ("gpu", 4096, "merged"),
+])
+def test_served_algo_choice(monkeypatch, backend, n, want):
+    import jax
+    from qtesla_ntt.models import served_algo
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    assert served_algo(n) == want
+
+
+def test_default_algo_is_served():
+    """algo=None resolves through served_algo: `merged` on the CPU."""
+    from qtesla_ntt.models import polymul_fixed_fn, polymul_fn
+    assert polymul_fn("smallprime") is polymul_fn("smallprime", "merged")
+    with pytest.raises(ValueError, match="unknown fixed-operand"):
+        polymul_fixed_fn("smallprime", "stockham")

@@ -1,15 +1,16 @@
 """Multi-device sharding tests on the 8-virtual-CPU-device mesh
-(SURVEY.md §4: same shard_map code path as a real pod, no TPU needed)."""
+(SURVEY.md §4: the same shard_map code path as a multi-GPU host, without
+one)."""
 
 import numpy as np
 import pytest
 import jax
 
-from qtesla_tpu.models import polymul_negacyclic
-from qtesla_tpu.parallel import (make_mesh, polymul_dp_fn,
+from qtesla_ntt.models import polymul_negacyclic
+from qtesla_ntt.parallel import (make_mesh, polymul_dp_fn,
                                  polymul_fourstep_sharded_fn,
                                  ntt_fourstep_sharded_fn)
-from qtesla_tpu.params import get_params
+from qtesla_ntt.params import get_params
 
 needs8 = pytest.mark.skipif(len(jax.devices()) < 8,
                             reason="needs 8 virtual devices")
@@ -50,8 +51,8 @@ def test_fourstep_sharded_matches_local_fourstep_spectrum(data16):
     """Sharded forward spectrum == single-device four-step spectrum (same
     (k1, k2) indexing), catching layout bugs the full-pipeline test could
     mask."""
-    from qtesla_tpu.ops import ntt as N
-    from qtesla_tpu.ops.tables import get_tables
+    from qtesla_ntt.ops import ntt as N
+    from qtesla_ntt.ops.tables import get_tables
     import jax.numpy as jnp
     ps, x, y, want = data16
     tbl = get_tables(ps.name)
@@ -81,6 +82,31 @@ def test_fourstep_sharded_other_param_sets(rng):
 
 
 @needs8
+@pytest.mark.parametrize("name", ["qtesla-iii-speed", "qtesla-p-iii"])
+def test_fourstep_sharded_vs_oracle(rng, name):
+    """The four-step SP with jnp locals at real sets on a (data=2,
+    model=4) mesh, every row against the schoolbook oracle."""
+    from qtesla_ntt.oracle import mismatched_rows
+    ps = get_params(name)
+    x = rng.integers(0, ps.q, (4, ps.n), dtype=np.uint32)
+    y = rng.integers(0, ps.q, (4, ps.n), dtype=np.uint32)
+    z = np.asarray(polymul_fourstep_sharded_fn(
+        name, make_mesh(data=2, model=4))(x, y))
+    assert mismatched_rows(x, y, z, ps, range(4)) == []
+
+
+@needs8
+@pytest.mark.slow
+def test_fourstep_sharded_explicit_n1(data16):
+    """Non-default split: n1=64 (n2=16) still bit-exact (the reference
+    hardcodes N1=32, main.cuh:17)."""
+    ps, x, y, want = data16
+    mesh = make_mesh(data=2, model=4)
+    z = np.asarray(polymul_fourstep_sharded_fn(ps.name, mesh, n1=64)(x, y))
+    np.testing.assert_array_equal(z, want)
+
+
+@needs8
 def test_mesh_validation():
     with pytest.raises(ValueError, match="needs"):
         make_mesh(data=16, model=1)
@@ -92,13 +118,12 @@ def test_mesh_validation():
 
 @needs8
 def test_pad_batch_wrapper_ragged(data16):
-    """The shard_map wrapper used for the Pallas algos must accept batches
-    not divisible by the mesh size (pad up, slice back) — regression for
-    round-1 ADVICE."""
+    """The shard_map wrapper used for the Pallas kernel must accept batches
+    not divisible by the mesh size (pad up, slice back)."""
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
-    from qtesla_tpu.models import polymul_fn
-    from qtesla_tpu.parallel.sharded import _pad_batch_wrapper
+    from qtesla_ntt.models import polymul_fn
+    from qtesla_ntt.parallel.sharded import _pad_batch_wrapper
 
     ps, x, y, want = data16
     mesh = make_mesh(data=4, model=2)
@@ -114,10 +139,10 @@ def test_pad_batch_wrapper_ragged(data16):
 def test_polymul_fixed_dp_merged(rng):
     """DP-sharded fixed-operand products on the virtual CPU mesh (jnp
     path): batch sharded, spectrum replicated."""
-    from qtesla_tpu.models import polymul_negacyclic
-    from qtesla_tpu.parallel import make_mesh
-    from qtesla_tpu.parallel.sharded import polymul_fixed_dp_fn
-    from qtesla_tpu.params import get_params
+    from qtesla_ntt.models import polymul_negacyclic
+    from qtesla_ntt.parallel import make_mesh
+    from qtesla_ntt.parallel.sharded import polymul_fixed_dp_fn
+    from qtesla_ntt.params import get_params
 
     ps = get_params("smallprime")
     mesh = make_mesh(data=4, model=2)
@@ -131,229 +156,13 @@ def test_polymul_fixed_dp_merged(rng):
 
 
 @needs8
-@pytest.mark.slow
-def test_fourstep_mxu_sharded_bit_exact(data16):
-    """The MXU-kernel SP path (interpret mode on the CPU mesh): same
-    layouts/all_to_alls as the jnp path, local compute through the fused
-    digit-matmul kernels — bit-exact vs the single-device pipeline."""
-    from qtesla_tpu.parallel.sharded_mxu import polymul_fourstep_mxu_fn
-    ps, x, y, want = data16
-    mesh = make_mesh(data=2, model=4)
-    z = np.asarray(polymul_fourstep_mxu_fn(ps.name, mesh,
-                                           interpret=True)(x, y))
-    np.testing.assert_array_equal(z, want)
-
-
-@needs8
-def test_fourstep_mxu_classes_boundary_bit_exact(data16):
-    """Round-5 lazy-boundary experiment: the first all_to_all ships the
-    RAW biased int32 class sums (Dout planes, no seg1 recombination) and
-    seg2 consumes them through 2^{8j}-scaled row tables — must be
-    bit-exact vs the single-device pipeline (VERDICT r4 item 3)."""
-    from qtesla_tpu.parallel.sharded_mxu import (
-        polymul_fourstep_mxu_classes_fn)
-    ps, x, y, want = data16
-    mesh = make_mesh(data=2, model=4)
-    z = np.asarray(polymul_fourstep_mxu_classes_fn(
-        ps.name, mesh, interpret=True)(x, y))
-    np.testing.assert_array_equal(z, want)
-
-
-@needs8
-@pytest.mark.slow
-def test_fourstep_mxu_classes_boundary_k8(data16):
-    """Class boundary at model=8 (no wide stages in seg1: the pure
-    split->dots->ship pipeline) stays bit-exact."""
-    from qtesla_tpu.parallel.sharded_mxu import (
-        polymul_fourstep_mxu_classes_fn)
-    ps, x, y, want = data16
-    mesh = make_mesh(data=1, model=8)
-    z = np.asarray(polymul_fourstep_mxu_classes_fn(
-        ps.name, mesh, interpret=True)(x, y))
-    np.testing.assert_array_equal(z, want)
-
-
-@needs8
-@pytest.mark.slow
-def test_fourstep_mxu_sharded_fixed(data16, rng):
-    from qtesla_tpu.parallel.sharded_mxu import (
-        polymul_fixed_fourstep_mxu_fn)
-    ps, x, _, _ = data16
-    mesh = make_mesh(data=2, model=4)
-    a = rng.integers(0, ps.q, (ps.n,), dtype=np.uint32)
-    prep, mul = polymul_fixed_fourstep_mxu_fn(ps.name, mesh,
-                                              interpret=True)
-    z = np.asarray(mul(x, prep(a)))
-    want = np.asarray(polymul_negacyclic(
-        x, np.broadcast_to(a, x.shape), ps, algo="merged"))
-    np.testing.assert_array_equal(z, want)
-
-
-@needs8
-def test_fourstep_mxu_sharded_fixed_folded(data16, rng):
-    """Round-4 folded fixed path: the constant's pointwise diagonal folded
-    into ONE per-(device, block) segment-2 matmul (plan p2x) — bit-exact
-    vs the merged single-chip pipeline and the unfolded fixed path."""
-    from qtesla_tpu.parallel.sharded_mxu import (
-        polymul_fixed_folded_fourstep_mxu_fn)
-    ps, x, _, _ = data16
-    mesh = make_mesh(data=2, model=4)
-    a = rng.integers(0, ps.q, (ps.n,), dtype=np.uint32)
-    prep, mul = polymul_fixed_folded_fourstep_mxu_fn(ps.name, mesh,
-                                                     interpret=True)
-    z = np.asarray(mul(x, *prep(a)))
-    want = np.asarray(polymul_negacyclic(
-        x, np.broadcast_to(a, x.shape), ps, algo="merged"))
-    np.testing.assert_array_equal(z, want)
-
-
-@needs8
-@pytest.mark.exhaustive
-def test_fourstep_mxu_folded_fixed_other_sets(rng):
-    """Folded fixed path on a 30-bit-q set at model=8 (no wide stages —
-    the pure 3-matmul pipeline) and q-iii at model=8."""
-    from qtesla_tpu.parallel.sharded_mxu import (
-        polymul_fixed_folded_fourstep_mxu_fn)
-    for name, mesh in [("qtesla-iii-speed", make_mesh(data=1, model=8)),
-                       ("qtesla-p-i", make_mesh(data=1, model=8))]:
-        ps = get_params(name)
-        B = 2 * mesh.shape["data"]
-        x = rng.integers(0, ps.q, (B, ps.n), dtype=np.uint32)
-        a = rng.integers(0, ps.q, (ps.n,), dtype=np.uint32)
-        prep, mul = polymul_fixed_folded_fourstep_mxu_fn(ps.name, mesh,
-                                                         interpret=True)
-        z = np.asarray(mul(x, *prep(a)))
-        want = np.asarray(polymul_negacyclic(
-            x, np.broadcast_to(a, x.shape), ps, algo="merged"))
-        np.testing.assert_array_equal(z, want)
-
-
-@needs8
-@pytest.mark.exhaustive
-def test_fourstep_mxu_other_sets(rng):
-    from qtesla_tpu.parallel.sharded_mxu import polymul_fourstep_mxu_fn
-    # qtesla-iii-speed at model=8 is the config whose seg1 cost model picks
-    # the CANONICAL forward split (chain-then-3-plane beats the 4-plane
-    # lazy split there) — it must stay in the matrix so both sides of the
-    # lazy/canonical comparison are exercised
-    for name, mesh in [("qtesla-i", make_mesh(data=2, model=4)),
-                       ("qtesla-iii-speed", make_mesh(data=1, model=8)),
-                       ("qtesla-p-iii", make_mesh(data=1, model=8))]:
-        ps = get_params(name)
-        x = rng.integers(0, ps.q, (8, ps.n), dtype=np.uint32)
-        y = rng.integers(0, ps.q, (8, ps.n), dtype=np.uint32)
-        x[0, :] = ps.q - 1
-        y[0, :] = ps.q - 1
-        want = np.asarray(polymul_negacyclic(x, y, ps, algo="merged"))
-        z = np.asarray(polymul_fourstep_mxu_fn(name, mesh,
-                                               interpret=True)(x, y))
-        np.testing.assert_array_equal(z, want)
-
-
-@needs8
-@pytest.mark.exhaustive
-def test_fourstep_mxu_large_nloc(rng):
-    """Configs the round-2 dense path hard-capped (_MAX_DENSE=512):
-    qtesla-p-iii at model=2 has nloc=1024 and dilithium-4096 at model=2
-    has nloc=2048 — the block-split rebuild must handle both bit-exactly
-    (round-2 VERDICT item 1)."""
-    from qtesla_tpu.parallel.sharded_mxu import polymul_fourstep_mxu_fn
-    from qtesla_tpu.params import register_param_set
-    register_param_set("dilithium-4096", n=4096, q=8380417)
-    for name, mesh, B in [("qtesla-p-iii", make_mesh(data=4, model=2), 8),
-                          ("dilithium-4096", make_mesh(data=1, model=2),
-                           2)]:
-        ps = get_params(name)
-        x = rng.integers(0, ps.q, (B, ps.n), dtype=np.uint32)
-        y = rng.integers(0, ps.q, (B, ps.n), dtype=np.uint32)
-        x[0, :] = ps.q - 1
-        y[0, :] = ps.q - 1
-        want = np.asarray(polymul_negacyclic(x, y, ps, algo="merged"))
-        z = np.asarray(polymul_fourstep_mxu_fn(name, mesh,
-                                               interpret=True)(x, y))
-        np.testing.assert_array_equal(z, want, err_msg=name)
-
-
-@needs8
-def test_auto_fallback_warns_loudly(data16, monkeypatch):
-    """local='auto' on a TPU backend must NOT silently downgrade to the
-    ~8x slower jnp locals: a RuntimeWarning naming the reason is required
-    (round-2 VERDICT item 3 — the old bare `except Exception: pass`
-    swallowed real plan-construction errors too)."""
-    import warnings
-    import jax as _jax
-    from qtesla_tpu.parallel import sharded as S
-    from qtesla_tpu.parallel import sharded_mxu as SM
-    ps, x, y, want = data16
-    mesh = make_mesh(data=2, model=4)
-    monkeypatch.setattr(_jax, "default_backend", lambda: "tpu")
-
-    def boom(*a, **k):
-        raise ValueError("nloc unsupported for this config")
-
-    monkeypatch.setattr(SM, "fourstep_mxu_plans", boom)
-    with warnings.catch_warnings(record=True) as rec:
-        warnings.simplefilter("always")
-        fn = S.polymul_fourstep_sharded_fn(ps.name, mesh, local="auto")
-    msgs = [str(w.message) for w in rec
-            if issubclass(w.category, RuntimeWarning)]
-    assert any("jnp local transforms" in m and "nloc unsupported" in m
-               for m in msgs), msgs
-    # the fallback must still be correct
-    np.testing.assert_array_equal(np.asarray(fn(x, y)), want)
-    # and an explicit local='mxu' must surface the error, not downgrade
-    with pytest.raises(ValueError, match="nloc unsupported"):
-        # polymul_fourstep_mxu_fn calls the (patched) plan builder
-        monkeypatch.setattr(SM, "polymul_fourstep_mxu_fn",
-                            lambda *a, **k: boom())
-        S.polymul_fourstep_sharded_fn(ps.name, mesh, local="mxu")
-
-
-@needs8
 def test_fourstep_sharded_roundtrip(data16):
     """Sharded forward + sharded inverse = identity (the inverse transform
     API, symmetric to ntt_fourstep_sharded_fn)."""
-    from qtesla_tpu.parallel import intt_fourstep_sharded_fn
+    from qtesla_ntt.parallel import intt_fourstep_sharded_fn
     ps, x, _, _ = data16
     mesh = make_mesh(data=2, model=4)
     fwd = ntt_fourstep_sharded_fn(ps.name, mesh)
     inv = intt_fourstep_sharded_fn(ps.name, mesh)
     back = np.asarray(inv(fwd(x)))
     np.testing.assert_array_equal(back, x)
-
-
-@needs8
-@pytest.mark.slow
-def test_fourstep_sharded_explicit_n1(data16):
-    """Non-default split: n1=64 (n2=16) still bit-exact through the jnp
-    and MXU SP paths (the reference hardcodes N1=32, main.cuh:17)."""
-    from qtesla_tpu.parallel.sharded_mxu import polymul_fourstep_mxu_fn
-    ps, x, y, want = data16
-    mesh = make_mesh(data=2, model=4)
-    z = np.asarray(polymul_fourstep_sharded_fn(
-        ps.name, mesh, n1=64, local="jnp")(x, y))
-    np.testing.assert_array_equal(z, want)
-    z = np.asarray(polymul_fourstep_mxu_fn(
-        ps.name, mesh, n1=64, interpret=True)(x, y))
-    np.testing.assert_array_equal(z, want)
-
-
-@pytest.mark.slow
-def test_sp_digit_plan_extra_plane_penalty_picks_base256():
-    """Round-3b measured the un-penalized model's base-128 pick for
-    qtesla-iii-speed's SP plans 7-19% slower than base-256; the
-    extra-plane penalty (ntt_mxu._COST_PLANE_EXTRA, applied only in the
-    SP planners) must rank base-256 first wherever base-128 needs more
-    planes, while the flagship fixed-fold plan (equal plane count,
-    base-128 measured faster) keeps base-128."""
-    from qtesla_tpu.ops.ntt_mxu import fixed_fold_plan, get_mxu_tables
-    from qtesla_tpu.parallel.sharded_mxu import fourstep_mxu_plans
-
-    plans = fourstep_mxu_plans("qtesla-iii-speed", 32, 4)
-    # p2f's candidates differ in plane count (base-128 needs one more
-    # to cover the lazy bound): the penalty must keep base-256
-    assert plans.p2f.base == 256
-    # the flagship planners are unpenalized: the fold keeps its
-    # measured-faster base-128 (A/B 0.730 vs 0.742 ms, round 4)
-    assert fixed_fold_plan("qtesla-iii-speed").base == 128
-    assert get_mxu_tables("qtesla-iii-speed").fwd_base == 256

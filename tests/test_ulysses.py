@@ -6,10 +6,10 @@ fixed-operand variant."""
 import numpy as np
 import pytest
 
-from qtesla_tpu.models import polymul_negacyclic
-from qtesla_tpu.parallel import (make_mesh, polymul_fixed_ulysses_fn,
+from qtesla_ntt.models import polymul_negacyclic
+from qtesla_ntt.parallel import (make_mesh, polymul_fixed_ulysses_fn,
                                  polymul_sp_fn, polymul_ulysses_fn)
-from qtesla_tpu.params import get_params
+from qtesla_ntt.params import get_params
 
 
 def _data(name, B, rng):
